@@ -3,10 +3,9 @@
 
 Spawns 2 local processes (4 virtual CPU devices each) that form one
 8-device global mesh via jax.distributed, lay it out with
-parallel.mesh.make_hybrid_mesh (host axis = process boundary = the DCN
-dimension), and run the dp-sharded batched decode with a psum checksum
-across BOTH processes.  This exercises exactly what a 2-host TPU pod
-slice would: process-spanning collectives over the outer axis while the
+parallel.mesh.make_hybrid_mesh (host axis = process boundary), and run
+the dp-sharded batched decode with a psum checksum across BOTH processes.
+This exercises exactly what a 2-host deployment would: process-spanning collectives over the outer axis while the
 codec body stays embarrassingly parallel.
 
 Usage: python benchmarks/multiprocess_sim.py          # launcher

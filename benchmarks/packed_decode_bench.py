@@ -2,8 +2,7 @@
 """Stream-packed decode on the real mixed-geometry corpus.
 
 The un-bucketed batch pipeline pays B * max(stream) on mixed corpora and
-the bucketed scheduler still pays per-bucket padding + dispatches
-(BASELINE.md).  Packing (models/packed.py) makes replay work track
+the bucketed scheduler still pays per-bucket padding + dispatches.  Packing (models/packed.py) makes replay work track
 sum(sizes): whole real images of ANY geometry/channels share lanes.
 
 Usage: python benchmarks/packed_decode_bench.py [--replicate N]

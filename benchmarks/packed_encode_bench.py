@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Encode-side stream packing on the real mixed-geometry corpus.
 
-The un-bucketed batch pipeline pays B * max(pixels) on mixed corpora
-(BASELINE.md: 240-274 MPix/s device encode on real content).  Packed
+The un-bucketed batch pipeline pays B * max(pixels) on mixed corpora.
+Packed
 encode lanes (models/packed.PackedEncoder) make the compact + table-scan
 + emit work track sum(pixels): whole real images of ANY geometry and
 channels share lanes.

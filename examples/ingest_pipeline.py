@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""End-to-end vision-ingest demo — the BASELINE.json north-star use case:
+"""End-to-end vision-ingest demo — the dataset-ingest use case:
 a directory of QOI files is batch-decoded ON DEVICE into HBM-resident
 tensors and fed straight into a (toy) vision model forward pass, with no
 host round trip between decode and compute.
@@ -9,7 +9,7 @@ host round trip between decode and compute.
 Pipeline:  native batch file loader (C, one pass)
         -> BatchPipeline.decode (boundary scan + Pallas replay kernel)
         -> normalize to bf16 NHWC in HBM
-        -> conv-ish forward (MXU matmuls)
+        -> conv-ish forward (matmuls)
 """
 
 import argparse
@@ -42,7 +42,7 @@ def make_dataset(root: Path, n: int, side: int) -> None:
 
 
 def toy_model_apply(params, images_bf16):
-    """A stand-in vision trunk: patchify + two MXU matmuls + pooling."""
+    """A stand-in vision trunk: patchify + two matmuls + pooling."""
     import jax.numpy as jnp
 
     b, h, w, c = images_bf16.shape

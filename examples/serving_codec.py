@@ -2,7 +2,7 @@
 """Composite serving decode: route streams by size to the right engine.
 
 Production corpora mix tiny icons with multi-MB photos.  One engine
-cannot serve both well on a TPU:
+cannot serve both well on one accelerator shape:
 
   * stream packing (models/packed.py) — total work tracks sum(sizes),
     ideal for the many-small-streams tail, but replay depth = lane
@@ -14,8 +14,8 @@ This example routes a mixed corpus through both BY HAND to show the
 mechanics; the PRODUCTION form is the package component
 `qoipp_tpu.models.serving.ServingCodec` (size-tiered packed plans +
 bucketed fallback behind one front-end — use that in real deployments).
-Every stream verifies against the native oracle.  Run anywhere (CPU
-works; kernels run in interpret mode off-TPU):
+Every stream verifies against the native oracle.  Run anywhere (on the
+CPU the replay runs as its plain lax.scan reference):
 
     python examples/serving_codec.py
 """

@@ -1,6 +1,6 @@
 // qoi_ref.cpp — CPU reference QOI codec with a C ABI (loaded via ctypes).
 //
-// This is the parity oracle and CPU fallback for the TPU-native framework.
+// This is the parity oracle and CPU fallback for the device codec.
 // It implements the exact QOI semantics documented in SURVEY.md §0, matching
 // the behavior of the reference encoder/decoder (reference hot loops:
 // source/simple.cpp:17-171, streaming state machines: source/stream.cpp)

@@ -1,8 +1,8 @@
-"""qoipp_tpu — TPU-native QOI codec framework (JAX / XLA / Pallas).
+"""qoipp_tpu — QOI codec framework on JAX / XLA with a CUDA replay kernel.
 
 A from-scratch re-design of the capabilities of the reference C++ library
 (mrizaln/qoipp): one-shot and streaming QOI encode/decode with Result-style
-error returns, reformulated for TPU as parallel scans and batched device
+error returns, reformulated as parallel scans and batched device
 pipelines, with a native C++ CPU oracle for bit-exact parity.
 """
 

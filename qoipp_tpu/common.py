@@ -1,6 +1,6 @@
 """Core QOI types, constants, validation and header I/O.
 
-TPU-native re-implementation of the reference library's format layer
+Re-implementation of the reference library's format layer
 (reference: include/qoipp/common.hpp:17-23 constants, :54-132 enums/structs,
 :78-94 Error taxonomy, :346-412 validation/size math; source/common.cpp:13-72
 header parsing).  Pure Python/numpy — no JAX dependency so it can be imported

@@ -1,4 +1,4 @@
-"""Packed-pixel bit manipulation helpers for the TPU codec kernels.
+"""Packed-pixel bit manipulation helpers for the device codec.
 
 Pixels travel through the device pipelines as uint32 words (r | g<<8 |
 b<<16 | a<<24) so the 64-entry running index (SURVEY.md §0) is a dense

@@ -15,8 +15,8 @@ is always < 5.  Its per-byte transition has a closed form:
 
 Blocks of B bytes therefore compose as maps {0..4} -> {0..4}:
 1. per-block map: a B-step lax.scan on a (batch, 5, num_blocks) uint8
-   carry (vector select+decrement per step — no gathers; num_blocks rides
-   the TPU lane axis, the 5 phases ride sublanes);
+   carry (vector select+decrement per step — no gathers; num_blocks is
+   the minor axis);
 2. cross-block: jax.lax.associative_scan composing the 5-entry maps with
    one-hot selects;
 3. per-position phases: a second B-step scan replaying each block from its
@@ -60,7 +60,7 @@ def chunk_starts_batch(regions):
     b, qb = regions.shape
     nblk = qb // BLOCK
     lens = chunk_len_of(regions).reshape(b, nblk, BLOCK)
-    # scan inputs: (BLOCK steps, B, nblk) — nblk on the TPU lane axis
+    # scan inputs: (BLOCK steps, B, nblk) — nblk on the minor axis
     lens_t = lens.transpose(2, 0, 1)
 
     # Stage A: per-block composed phase maps, carry (B, 5, nblk).

@@ -1,9 +1,6 @@
-"""TPU-native parallel QOI decoder.
+"""Parallel QOI decoder.
 
-Three-pass pipeline (SURVEY.md §7 design stance, tuned to the measured TPU
-reality that random gather/scatter runs near the scalar unit's serial
-limit while dense VPU ops, cumsum/cummax primitives and the Pallas grid
-pipeline run at full vector speed):
+Three-pass pipeline (SURVEY.md §7 design stance):
 
 1. *Boundary pass* (ops/boundary.py): tag-length classification + the
    5-phase composed scan locate every chunk start, its pixel output offset
@@ -13,19 +10,18 @@ pipeline run at full vector speed):
 2. *Replay pass* (ops/replay_kernel.py, the production engine): chunk
    fields (class / payload / delta / index-arg) are computed densely at
    EVERY byte position via shifted slices (classify_dense /
-   fields_dense_batch — no compaction, no gathers; non-start positions
-   become NOPs), then ONE Pallas kernel replays the whole batch: images
-   are VPU lanes, the (64, B) table lives in VMEM scratch, ~46 ns per
-   chunk step, exact for every stream including adversarial ones.
+   fields_dense_batch — no compaction; non-start positions become NOPs),
+   then ONE kernel replays the whole batch, one lane per stream, exact
+   for every stream including adversarial ones.
 
-3. *Expansion* (expand_bytes_batch): two exact engines — an opaque
-   scatter-SET + log-fill fast path, and a general telescoping-delta
-   sorted scatter-add + mod-2^32 cumsum.
+3. *Placement* (ops/sparse.place_pixels): one scatter of each chunk's row
+   index at its pixel offset, a running max to fill RUN interiors, and a
+   gather of the emitted values.
 
 This module also keeps the scan-engine alternative `decode_bytes`: S
 speculative tiles replayed by a T-step lax.scan with transfer-summary
 fixpoint reconciliation (bit-exact by induction from tile 0's true
-state).  It needs no Pallas and powers the sequence-parallel sharded path
+state).  It needs no kernel and powers the sequence-parallel sharded path
 (parallel/sharded.py); its fixpoint can take O(S) rounds on INDEX-heavy
 data, so the kernel engine is the default.  (A third engine, the Jacobi
 dataflow solve, is retired to examples/wave_engine.py.)
@@ -260,7 +256,7 @@ def expand_pixels(emits_q, prevs_q, real, produced, pix_before, n_cap: int):
 
 
 # --------------------------------------------------------------------------
-# Byte-domain fields + expansion for the Pallas replay kernel
+# Byte-domain fields for the replay kernel
 # --------------------------------------------------------------------------
 
 
@@ -268,8 +264,8 @@ def fields_dense_batch(regions, real):
     """Byte-domain (uncompacted) kernel fields for a batch: every byte
     position carries its (meta, val); non-chunk positions are NOPs.  No
     scatters at all — for compressed streams the chunk count is close to
-    the byte count, so replaying NOP rows is cheaper than compacting
-    through XLA's serial scatter path."""
+    the byte count, so the replay takes the NOP rows instead of a
+    compaction pass."""
     from . import classify as cls_ops
 
     b, qb = real.shape
@@ -291,94 +287,6 @@ def fields_dense_batch(regions, real):
     return meta, val
 
 
-def expand_bytes_batch(emits, real, produced, pix_before, n_cap: int):
-    """Byte-domain batched expansion with two exact engines:
-
-    * opaque fast path — when every emitted value's alpha is 0xFF (true
-      for any conforming RGB-channel stream; verified on the ACTUAL emits,
-      no well-formedness assumption): one flat scatter-SET of a
-      (flag | rgb24) word (all duplicate writers carry equal words by
-      construction, so set is deterministic), then a 6-pass log fill
-      across RUN gaps (gaps are <= 61 pixels).  Scatter-set measured
-      ~1.8x faster than scatter-add on TPU.
-
-    * general path — telescoping-delta scatter-add + mod-2^32 cumsum.
-
-    emits: (B, qb) from the replay kernel (NOP rows emit the running prev,
-    so shifts below are exact).
-
-    Engine selection is batch-global: ONE translucent lane routes the whole
-    batch through the general engine.  Both engines are exact, so this is a
-    throughput (not correctness) trade, and the production batched pipeline
-    does not come through here at all (ops/place_kernel.py handles alpha
-    uniformly); this path serves decode_single and the sp/scan engines,
-    whose batches are single-image — where the switch IS per-image.
-    """
-    b, qb = emits.shape
-    row = n_cap + 1
-    flat_base = (jnp.arange(b, dtype=jnp.int32) * row)[:, None]
-    covers = real & (produced > 0) & (pix_before < n_cap)
-    # pix_before is nondecreasing over ALL byte positions (including
-    # non-chunks), so using it directly keeps the scatter indices truly
-    # sorted; non-covered rows contribute neutrally.
-    idx = jnp.minimum(pix_before, n_cap)
-    flat = (flat_base + idx).reshape(-1)
-
-    def general(_):
-        prevv = jnp.concatenate(
-            [jnp.full((b, 1), START_PIXEL_PACKED, jnp.uint32), emits[:, :-1]],
-            axis=1,
-        )
-        delta = jnp.where(covers, emits - prevv, 0)
-        out0 = (
-            jnp.zeros(b * row, jnp.uint32)
-            .at[flat].add(delta.reshape(-1), indices_are_sorted=True)
-            .reshape(b, row)[:, :n_cap]
-        )
-        return jnp.cumsum(out0, axis=1) + START_PIXEL_PACKED
-
-    def opaque(_):
-        from .fill import fill_forward
-
-        # Every byte row carries the NEXT covered chunk's rgb (so rows in
-        # one duplicate group — those sharing pix_before — write equal
-        # words); fill-backward = fill-forward on the flipped axis.
-        rgb = emits & 0xFFFFFF
-        (nxt,), got, _ = fill_forward(
-            [(rgb[:, ::-1], 24)], covers[:, ::-1], covers[:, ::-1], axis=-1
-        )
-        word = jnp.where(
-            got[:, ::-1], jnp.uint32(1 << 31) | nxt[:, ::-1], jnp.uint32(0)
-        )
-        f = (
-            jnp.zeros(b * row, jnp.uint32)
-            .at[flat].set(word.reshape(-1), indices_are_sorted=True)
-            .reshape(b, row)[:, :n_cap]
-        )
-        # log fill across RUN interiors (nearest written slot to the left
-        # is always the covering chunk: gaps <= 61 < 64); fused halo kernel
-        # when the shape allows, dense passes otherwise
-        from . import replay_kernel as rk
-
-        blk = next(
-            (cand for cand in (16384, 8192, 4096, 2048, 1024, 512, 256, 128)
-             if n_cap % cand == 0),
-            None,
-        )
-        if blk is not None and n_cap >= 4 * blk:
-            f = rk.logfill_batch(f, blk=blk)
-        else:
-            for k in (1, 2, 4, 8, 16, 32):
-                shifted = jnp.concatenate(
-                    [jnp.zeros((b, k), jnp.uint32), f[:, :-k]], axis=1
-                )
-                f = jnp.where(f >> 31 != 0, f, shifted)
-        return (f & 0xFFFFFF) | jnp.uint32(0xFF000000)
-
-    all_opaque = jnp.all((emits >> 24) == 0xFF)
-    return jax.lax.cond(all_opaque, opaque, general, 0)
-
-
 # --------------------------------------------------------------------------
 # Host-facing single-image wrapper
 # --------------------------------------------------------------------------
@@ -396,8 +304,8 @@ def _bucket(n: int, lo: int = 128) -> int:
 
 
 def pick_tiles(qb: int) -> int:
-    """Tile count for the replay: one tile per ~1KiB of stream, capped so
-    the (S, 64) state stays comfortably in VMEM; must divide qb."""
+    """Tile count for the replay: one tile per ~1KiB of stream, capped at
+    512 tiles; must divide qb."""
     s = 1
     while s < 512 and s * 1024 < qb:
         s *= 2
@@ -406,33 +314,23 @@ def pick_tiles(qb: int) -> int:
     return max(s, 1)
 
 
-@partial(jax.jit, static_argnames=("n_cap", "lanes"))
-def _decode_region_kernel(region, real, produced, pix_before,
-                          n_cap: int, lanes: int = 8):
-    """Single-stream decode through the Pallas replay kernel (padded to
-    `lanes` batch lanes for layout friendliness), byte-domain."""
+@partial(jax.jit, static_argnames=("n_cap",))
+def _decode_region_kernel(region, real, pix_before, n_cap: int):
+    """Single-stream decode through the replay kernel (one lane),
+    byte-domain."""
     from . import replay_kernel as rk
+    from .sparse import place_pixels
 
-    qb = real.shape[0]
     meta, val = fields_dense_batch(region[None], real[None])
-    qpad = (-qb) % 512
-    meta_b = jnp.broadcast_to(
-        jnp.pad(meta, ((0, 0), (0, qpad)))[0][:, None], (qb + qpad, lanes)
-    )
-    val_b = jnp.broadcast_to(
-        jnp.pad(val, ((0, 0), (0, qpad)))[0][:, None], (qb + qpad, lanes)
-    )
-    emits = rk.replay_batch(meta_b, val_b)[:qb, 0]
-    return expand_bytes_batch(
-        emits[None], real[None], produced[None], pix_before[None], n_cap
-    )[0]
+    emits = rk.replay_batch(meta.T, val.T).T
+    return place_pixels(pix_before[None], emits, n_cap)[0]
 
 
 def decode_single(data, desc: Desc, dst_channels: Channels) -> np.ndarray:
     """Decode one QOI stream -> raw bytes, bit-exact incl. the reference's
     tolerant truncated-input behavior (simple.cpp:106-113).
 
-    Runs the Pallas replay kernel, which models the chunk state machine
+    Runs the replay kernel, which models the chunk state machine
     literally and is exact for every stream (no well-formedness caveats).
     """
     data = np.asarray(data, dtype=np.uint8).reshape(-1)
@@ -465,7 +363,6 @@ def decode_single(data, desc: Desc, dst_channels: Channels) -> np.ndarray:
     packed = _decode_region_kernel(
         region,
         info["real"],
-        info["produced"],
         info["pix_before"],
         n_cap=n_cap,
     )

@@ -1,9 +1,7 @@
 """Fill-forward ("last participating value at or before q") as a handful of
 native cummax primitives.
 
-TPU XLA compiles jax.lax.associative_scan over multi-million-element arrays
-pathologically slowly (minutes) and lowers random gathers serially, so the
-classic fill-forward formulations are out.  Instead we pack (position-tag,
+Instead of an associative_scan or gathers, we pack (position-tag,
 payload-piece) into uint32 words and take cummax: every piece's maximum is
 attained at the same (latest participating) position, so the pieces can be
 re-assembled afterwards.  k = ceil(payload_bits / (32 - pos_bits)) cummax
@@ -51,24 +49,6 @@ def fill_forward(
     n = arrs[0].shape[axis]
     total_bits = sum(widths) + 1  # +1 for the valid bit
     w, k = _plan(n, total_bits)
-
-    # Mosaic compiles cummax pathologically (~1 min) when a 2-D operand's
-    # leading dim is 2..7; pad it to a multiple of 8 and slice after.
-    rpad = 0
-    if (
-        arrs[0].ndim == 2
-        and axis in (-1, 1)
-        and 1 < arrs[0].shape[0]
-        and arrs[0].shape[0] % 8
-    ):
-        rpad = (-arrs[0].shape[0]) % 8
-        pad_rows = lambda x: jnp.pad(x, ((0, rpad), (0, 0)))
-        arrs = [pad_rows(a) for a in arrs]
-        participate = pad_rows(participate)
-        valid = pad_rows(valid)
-
-    def unpad(x):
-        return x[:-rpad] if rpad else x
 
     # Assemble payload pieces (valid bit first, then payloads LSB-first).
     comps = [(valid.astype(jnp.uint32), 1)] + [
@@ -121,11 +101,10 @@ def fill_forward(
             taken += take
         return v
 
-    ok = unpad(got & (extract(0, 1) > 0))
-    got = unpad(got)
+    ok = got & (extract(0, 1) > 0)
     values = []
     cursor = 1
     for _, bits in payloads:
-        values.append(unpad(extract(cursor, bits)))
+        values.append(extract(cursor, bits))
         cursor += bits
     return values, got, ok

@@ -18,9 +18,8 @@ from . import encode as enc_ops
 from .bitops import pixels_to_packed
 
 def _ensure_cache() -> None:
-    # Per-shape codec compiles take tens of seconds through the remoted TPU
-    # runtime; share them across calls unless the user already configured a
-    # cache location.  Deliberately lazy: importing the library must not
+    # Share per-shape codec compiles across processes unless the user
+    # already configured a cache location.  Deliberately lazy: importing the library must not
     # mutate global JAX config (applications embedding qoipp_tpu may manage
     # their own cache), so this runs at the first codec entry call instead.
     if jax.config.jax_compilation_cache_dir is None:

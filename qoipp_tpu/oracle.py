@@ -1,6 +1,6 @@
 """ctypes bindings to the native C++ CPU oracle codec (native/qoi_ref.cpp).
 
-The oracle is the bit-exact parity reference for the TPU kernels (mirroring
+The oracle is the bit-exact parity reference for the device codec (mirroring
 how the reference library tests against upstream qoi.h — SURVEY.md §4) and
 doubles as the fast CPU fallback backend.
 

@@ -3,7 +3,7 @@
 The reference has no parallelism (SURVEY.md §2d) — here batches of images
 shard over a `data` mesh axis (DP) and a single image's chunk stream can
 shard over a `seq` axis (the codec's sequence-parallel analog), with seam
-state exchanged over ICI via collectives (parallel/sharded.py).
+state exchanged via collectives (parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -42,26 +42,25 @@ def make_hybrid_mesh(
     axis_names: Sequence[str] = ("host", "data", "seq"),
     hosts: Optional[int] = None,
 ) -> Mesh:
-    """Multi-host (DCN x ICI) mesh layout.
+    """Multi-host mesh layout: host x data x seq.
 
-    Axis order encodes the interconnect hierarchy the way XLA expects
-    (slowest-varying axis spans the slowest links): `host` strides across
-    process boundaries (DCN), while `data`/`seq` stay inside each host's
-    ICI domain.  The codec's communication pattern is laid out so only
-    DCN-tolerant traffic crosses hosts:
+    The layout follows the algorithm, not a link topology: the cards of
+    one host reach each other all to all at one rate (NVLink), so only the
+    process boundary is a real hierarchy level.
 
-    * `host` and `data` carry the embarrassingly-parallel batch dimension
-      (no inter-device communication in the codec body; only optional
-      psum'd stats) — safe on DCN.
+    * `host` strides across processes and carries only the
+      embarrassingly-parallel batch dimension (no communication in the
+      codec body; only optional psum'd stats).
+    * `data` carries the batch inside a host.
     * `seq` carries the sequence-parallel seam exchange (ppermute /
-      all_gather of the ~260-byte carry state, parallel/sharded.py) —
-      latency-sensitive, so it is always innermost, riding ICI.
+      all_gather of the ~260-byte carry state, parallel/sharded.py); it
+      stays inside a host, so no seam crosses a process boundary.
 
     Under jax.distributed each process contributes jax.local_device_count()
     devices; `hosts` defaults to jax.process_count().  On a single host
     (or the CPU-simulated mesh) the host axis is 1 and the layout reduces
     to make_mesh semantics — which is how the hermetic tests and the
-    driver's dryrun exercise it.
+    dryrun exercise it.
     """
     devices = jax.devices()
     n = len(devices)

@@ -2,25 +2,24 @@
 single-image decode over a jax.sharding.Mesh.
 
 DP: images shard over the `data` axis; each device runs the batched codec
-on its shard — embarrassingly parallel, collectives only for summary stats.
+(replay kernel included) on its own shard under shard_map — embarrassingly
+parallel, collectives only for summary stats.
 
 SP (the codec's ring-attention-shaped problem, SURVEY.md §5 "long
 context"): one image's chunk tiles shard over the `seq` axis.  Each device
 replays its local tiles speculatively (ops/decode replay scan); the device-
 boundary carry (prev pixel + 64-entry table — the ~260-byte state vector of
-SURVEY.md §5) travels to the right neighbor via lax.ppermute over ICI, and
-a device-count-bounded fixpoint loop (the multi-chip extension of the
-single-chip reconciliation) converges to the exact sequential semantics.
+SURVEY.md §5) travels to the right neighbor via lax.ppermute, and a
+device-count-bounded fixpoint loop (the multi-device extension of the
+single-device reconciliation) converges to the exact sequential semantics.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 from jax import shard_map
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops import decode as dec_ops
 from ..ops import encode as enc_ops
@@ -33,38 +32,36 @@ from ..ops.bitops import START_PIXEL_PACKED, hash6
 
 
 def make_dp_decode(pipeline, mesh: Mesh, axis: str = "data"):
-    """jit the pipeline's batched decode with the batch sharded over `axis`.
-    XLA partitions the vmapped codec across devices with no communication;
-    a psum'd checksum exercises the ICI reduction path for observability."""
-    batch_sharding = NamedSharding(mesh, P(axis, None))
+    """The pipeline's batched decode with the batch sharded over `axis`.
 
-    @partial(
-        jax.jit,
-        in_shardings=(batch_sharding, NamedSharding(mesh, P(axis))),
-        out_shardings=(batch_sharding, NamedSharding(mesh, P())),
-    )
-    def dp_decode(streams, sizes):
+    shard_map runs the per-device body on each device's own images: XLA
+    cannot partition the replay kernel's custom call, so each device
+    replays its own lanes.  A psum'd checksum exercises the cross-device
+    reduction for observability.  The batch must divide by the axis size.
+    """
+
+    def body(streams, sizes):
         packed = pipeline._decode_impl(streams, sizes)
-        checksum = jnp.sum(packed.astype(jnp.uint32))
+        checksum = jax.lax.psum(jnp.sum(packed.astype(jnp.uint32)), axis)
         return packed, checksum
 
-    return dp_decode
+    return jax.jit(shard_map(
+        body, mesh=mesh,
+        in_specs=(P(axis, None), P(axis)),
+        out_specs=(P(axis, None), P()),
+        check_vma=False,
+    ))
 
 
 def make_dp_encode(pipeline, mesh: Mesh, axis: str = "data"):
-    batch_sharding = NamedSharding(mesh, P(axis, None))
-
-    @partial(
-        jax.jit,
-        in_shardings=(batch_sharding,),
-        out_shardings=(
-            batch_sharding,
-            NamedSharding(mesh, P(axis)),
-            NamedSharding(mesh, P(axis)),
-        ),
-    )
-    def dp_encode_checked(packed):
-        return pipeline._encode_impl(packed)
+    """The pipeline's batched encode with the batch sharded over `axis`
+    (per-device body under shard_map, as make_dp_decode)."""
+    dp_encode_checked = jax.jit(shard_map(
+        pipeline._encode_impl, mesh=mesh,
+        in_specs=(P(axis, None),),
+        out_specs=(P(axis, None), P(axis), P(axis)),
+        check_vma=False,
+    ))
 
     def dp_encode(packed):
         streams, lengths, ok = dp_encode_checked(packed)
@@ -95,7 +92,7 @@ def make_sp_decode(mesh: Mesh, qb: int, tiles_per_device: int,
 
     Each fixpoint round: local tile replay, then within-device transfer-
     summary propagation seeded by the left neighbor's last-tile out-state
-    (exchanged via lax.ppermute over ICI).  Convergence crosses one device
+    (exchanged via lax.ppermute).  Convergence crosses one device
     per round worst-case, all tiles per round within a device.
 
     Worst-case bound (proved by induction, pinned by
@@ -204,7 +201,7 @@ def make_sp_encode(mesh: Mesh, n_local: int, channels: int, axis: str = "seq"):
     the entering run counter follows from per-shard (trailing-streak,
     whole-shard-equal) summaries under mod-62 flush arithmetic, and the
     entering table is an exclusive overwrite-combine of per-shard 64-slot
-    summaries (all_gather of 64 words/shard over ICI).  Every shard then
+    summaries (all_gather of 64 words/shard).  Every shard then
     runs the dense field pass + emission independently.
 
     Returns fn: (n_dev*n_local,) u32 packed pixels (sharded P(axis)),

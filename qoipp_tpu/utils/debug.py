@@ -1,9 +1,8 @@
 """Debugging & observability helpers (SURVEY.md §5 "sanitizers" analog).
 
 The reference compiles ASan/LSan/UBSan into every test binary
-(test/CMakeLists.txt:36-38).  The TPU-side equivalents collected here:
-interpreter-mode execution for the Pallas kernel, strict numerics flags,
-and stream introspection (op histograms, chunk statistics) for diagnosing
+(test/CMakeLists.txt:36-38).  The device-side equivalents collected here:
+strict numerics flags and stream introspection (op histograms, chunk statistics) for diagnosing
 malformed or adversarial inputs.
 """
 
@@ -33,16 +32,6 @@ def strict_numerics():
     finally:
         jax.config.update("jax_debug_nans", old_nan)
         jax.config.update("jax_debug_infs", old_inf)
-
-
-@contextlib.contextmanager
-def interpret_kernels():
-    """Force the Pallas replay kernel through the interpreter — bit-exact
-    reference execution for kernel debugging (SURVEY.md §5)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 @dataclass

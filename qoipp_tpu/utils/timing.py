@@ -2,30 +2,41 @@
 
 The reference ships steady-clock lambda timers (example/source/timer.hpp:
 17-82) and derives MPix/s in its bench (04_bench.cpp:232-233).  Device
-timing needs more care: on remoted TPU runtimes a single dispatch+fetch
-round trip can cost tens of milliseconds, so `device_time` amortizes the
-RTT over n dispatches with one trailing fetch — the pattern that produced
-every number in BASELINE.md.
+work is asynchronous, so device timings wait on the results with
+jax.block_until_ready inside the timed region.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+from pathlib import Path
 from typing import Callable
 
-import numpy as np
+# The checkout's own cache directory (listed in .gitignore); a fixed path,
+# because the path is part of the cache key.
+CHECKOUT_CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def enable_compile_cache(path: str = "/tmp/qoipp_tpu_jax_cache") -> None:
-    """Point JAX's persistent compilation cache at a shared directory.
+def compile_cache_dir() -> str:
+    """JAX_COMPILATION_CACHE_DIR when set, else the checkout's .jax_cache."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(
+        CHECKOUT_CACHE_DIR
+    )
 
-    Per-shape XLA compiles of the codec programs take tens of seconds via
-    the remoted TPU runtime; every entry point that may compile (tests,
-    bench, CLI tools) calls this so shapes compile once per machine."""
+
+def enable_compile_cache() -> None:
+    """Turn on JAX's persistent compilation cache for the codec programs.
+
+    Honours JAX_COMPILATION_CACHE_DIR (JAX reads it itself, so no path is
+    set here then); otherwise the cache lives in the checkout's
+    .jax_cache.  Every entry point that may compile (tests, bench, CLI
+    tools) calls this so shapes compile once."""
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", path)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
@@ -40,33 +51,18 @@ def time_ms(fn: Callable, runs: int = 5, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) / runs * 1e3
 
 
-def _fetch(out) -> None:
-    """Force materialization through the device transport (block_until_ready
-    alone does not synchronize through some remoting layers)."""
+def device_time_ms(fn: Callable, *args, runs: int = 10) -> float:
+    """Warm time of fn(*args) in milliseconds: one untimed call (compile),
+    then `runs` dispatches timed on the host clock up to
+    jax.block_until_ready of the last result, averaged."""
     import jax
 
-    for leaf in jax.tree_util.tree_leaves(out):
-        if hasattr(leaf, "ravel"):
-            np.asarray(leaf.ravel()[:1])
-
-
-def device_time_ms(fn: Callable, *args, runs: int = 10) -> float:
-    """RTT-amortized device time of fn(*args) in milliseconds.
-
-    Measures one dispatch+fetch round trip, then `runs` dispatches with a
-    single trailing fetch, and subtracts the round trip."""
-    out = fn(*args)
-    _fetch(out)
-    t0 = time.perf_counter()
-    out = fn(*args)
-    _fetch(out)
-    rtt = time.perf_counter() - t0
+    jax.block_until_ready(fn(*args))
     t0 = time.perf_counter()
     for _ in range(runs):
         out = fn(*args)
-    _fetch(out)
-    total = time.perf_counter() - t0
-    return max(total - rtt, 0.0) / max(runs - 1, 1) * 1e3
+    jax.block_until_ready(out)
+    return (time.perf_counter() - t0) / runs * 1e3
 
 
 def mpix_per_s(n_pixels: int, ms: float) -> float:
@@ -75,7 +71,8 @@ def mpix_per_s(n_pixels: int, ms: float) -> float:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/qoipp_tpu_trace"):
+def trace(log_dir: str = str(CHECKOUT_CACHE_DIR.parent / "chiprun_out"
+                             / "trace")):
     """jax.profiler trace context — open the result with TensorBoard or
     Perfetto to see per-op device timelines."""
     import jax

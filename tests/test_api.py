@@ -189,7 +189,7 @@ def test_full_roundtrip_both_backends(raw4):
 
 
 def test_encode_generator_vectorized(raw3, qoi3):
-    # Array-in/array-out generator fast path (the TPU-native analog of the
+    # Array-in/array-out generator fast path (the array analog of the
     # reference streaming generator pixels through the core,
     # util.hpp:322-337): must be bit-identical to the scalar path.
     px = raw3.reshape(-1, 3)
@@ -218,3 +218,18 @@ def test_oneshot_threshold_configuration(monkeypatch):
     assert api._env_threshold() == 262144
     monkeypatch.setenv("QOIPP_TPU_ONESHOT_DEVICE_THRESHOLD", "none")
     assert api._env_threshold() is None
+
+
+@pytest.mark.parametrize("platform,want", [("gpu", "jax"), ("cpu", "native")])
+def test_oneshot_auto_routes_on_gpu(monkeypatch, platform, want):
+    # backend="auto" sends one-shot calls at or above the threshold to the
+    # device only when JAX's default backend is a GPU
+    import jax
+
+    from qoipp_tpu import api
+
+    monkeypatch.setattr(api, "ONESHOT_DEVICE_THRESHOLD", 1000)
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert api._resolve_backend("auto", 1000) == want
+    assert api._resolve_backend("auto", 999) == "native"
+    assert api._resolve_backend("native", 10 ** 6) == "native"

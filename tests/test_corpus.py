@@ -65,7 +65,7 @@ def corpus():
 
     if local_corpus.available():
         # keep the hermetic tier fast: the >1.1-MPix images (full screenshot,
-        # 1080p photo) are exercised by the TPU bench and tools/bench.py
+        # 1080p photo) are exercised by bench.py and tools/bench.py
         return [
             (name, raw, desc)
             for name, _, raw, desc, _ in local_corpus.build()

@@ -1,5 +1,5 @@
 """Device-resident windowed streaming codec tests: window-size sweeps must
-reproduce the one-shot stream bit-exactly (the TPU analog of the reference's
+reproduce the one-shot stream bit-exactly (the device analog of the reference's
 buffer-size sweep, stream_test.cpp:192-252, at window granularity)."""
 
 import numpy as np

@@ -76,8 +76,8 @@ def test_packed_decode_mixed_streams_bit_exact():
 def test_packed_decode_rejects_truncated_stream():
     # A parseable header with no body bytes must be rejected up front —
     # an sz <= 0 item would repeat a seg_flat index and break the sorted/
-    # unique scatter invariants of _decode_lanes (silent corruption on
-    # TPU, where a false indices_are_sorted hint miscompiles).
+    # unique scatter invariants of _decode_lanes (silent corruption on a
+    # device where a false indices_are_sorted hint miscompiles).
     from qoipp_tpu.common import write_header
 
     good_raw = np.full(12, 7, np.uint8)

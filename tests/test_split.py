@@ -85,7 +85,7 @@ def test_split_overproducing_runs_clamp_like_reference():
     # the reference decoder clamps production at n_px (simple.cpp:156-163)
     # and the native walker mirrors that clamp, so the device lanes must
     # clamp pix_before at each segment's budget instead of silently
-    # diverging (ADVICE r4).  Interleave RGB writes so the stream still
+    # diverging.  Interleave RGB writes so the stream still
     # splits into many real segments.
     from qoipp_tpu.common import write_header
 

@@ -1,6 +1,8 @@
 """Aux subsystem tests: native loader, stream inspection, RGBA pipeline,
 timing helpers."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -147,3 +149,45 @@ def test_stage_h2d_edges():
         assert int(np.asarray(transport.stage_h2d(np.uint32(7)))) == 7
     finally:
         transport.set_h2d_chunk_bytes(0)
+
+
+@pytest.mark.parametrize("env", [None, "custom"])
+def test_compile_cache_placement(monkeypatch, tmp_path, env):
+    # JAX_COMPILATION_CACHE_DIR wins and no path is set in code; without
+    # it the cache goes to the checkout's own .jax_cache
+    import jax
+
+    from qoipp_tpu.utils import timing
+
+    before = jax.config.jax_compilation_cache_dir
+    marker = str(tmp_path / "untouched")
+    jax.config.update("jax_compilation_cache_dir", marker)
+    try:
+        if env is None:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            want = str(Path(timing.__file__).resolve().parents[2]
+                       / ".jax_cache")
+            assert timing.compile_cache_dir() == want
+            timing.enable_compile_cache()
+            assert jax.config.jax_compilation_cache_dir == want
+        else:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
+                               str(tmp_path / env))
+            assert timing.compile_cache_dir() == str(tmp_path / env)
+            timing.enable_compile_cache()
+            assert jax.config.jax_compilation_cache_dir == marker
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_device_time_ms_blocks_on_results():
+    from qoipp_tpu.utils.timing import device_time_ms
+
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return x + 1
+
+    assert device_time_ms(fn, np.float32(1), runs=3) >= 0
+    assert len(calls) == 4  # one untimed warm-up + 3 timed

@@ -292,8 +292,7 @@ def main(argv=None):
         td = te = float("nan")
         if not args.no_decode:
             def run_dec():
-                out = pipe.decode_packed(streams, sizes)
-                np.asarray(out[:, :1])  # sync through the transport
+                jax.block_until_ready(pipe.decode_packed(streams, sizes))
 
             td = timed(run_dec, args.runs, warmup)
         if not args.no_encode:
@@ -307,8 +306,7 @@ def main(argv=None):
             ])
 
             def run_enc():
-                out, lens, _ = pipe.encode_packed_checked(packed_in)
-                np.asarray(lens[:1])  # sync through the transport
+                jax.block_until_ready(pipe.encode_packed_checked(packed_in))
 
             te = timed(run_enc, args.runs, warmup)
         print(fmt_row([
@@ -323,6 +321,8 @@ def main(argv=None):
     # + bucketed batches behind ONE front-end; 04_bench's multi-codec
     # table analog for the device engines) --------------------------------
     if not getattr(args, "no_serving"):
+        import jax
+
         from qoipp_tpu.models.serving import ServingCodec
 
         codec = ServingCodec()
@@ -338,12 +338,10 @@ def main(argv=None):
                         return 1
 
             def run_sdec():
-                # HBM-resident completion; fetch is the transport's cost
+                # device-resident completion; the fetch is not timed
                 plan = codec.decode_dispatch(blobs)
-                for _, (dev, _, _) in plan[1]:
-                    np.asarray(dev[0, 0])
-                for _, (dev, _, _, _) in plan[2]:
-                    np.asarray(dev[0, 0])
+                jax.block_until_ready(
+                    [dev for _, (dev, *_r) in plan[1] + plan[2]])
 
             td = timed(run_sdec, args.runs, warmup)
         if not args.no_encode:
